@@ -36,9 +36,8 @@ def main():
                      ef_construction=128, seed=0)
 
     # warm build first: program shapes depend on n, and a cold build at
-    # this shape pays minutes of remote XLA compile (r2 shipped a 542s
-    # "build" that was ~95% kmeans compile); the steady-state build is
-    # what the artifact reports, the warmup separately
+    # this shape pays XLA compilation; the steady-state build is what
+    # the artifact reports, the warmup separately
     t0 = time.perf_counter()
     widx = BlockHnswIndex(cfg, block_size=256).build(base)
     jax.block_until_ready(widx.blocks)

@@ -6,10 +6,9 @@ routed query + global top-k merge correctness at scale and measures QPS.
 Partitions are BlockHnswIndex shards served through ShardedBlockSearcher
 on a 1-DEVICE mesh: local_p = 8, so the whole fan-out (route -> expand
 -> rerank per partition) plus the global top-k merge compiles into ONE
-program and a batch costs one dispatch. The host-loop fan-out this
-replaced paid 8 dispatches plus per-batch host routing (~9ms/partition
-of fabric latency) and measured 14.3k QPS at ef=16 — the dispatch tax,
-not the search. Equivalence of the two paths is pinned by
+program and a batch costs one dispatch instead of the host-loop
+fan-out's 8 dispatches plus per-batch host routing. Equivalence of the
+two paths is pinned by
 tests/test_partition.py::test_sharded_block_single_device_multi_partition.
 
 Memory check: 10M x 96 f32 blocks = 3.84 GB + int8 scoring copy; the
@@ -59,10 +58,10 @@ def main():
     # "global top-k merge correctness" requirement) — checked via recall
     # against the exact oracle over the FULL table. Oracle FIRST, then
     # freed: 10M x 96 f32 is 3.84GB, and oracle + 8 block shards
-    # (f32 + bf16 scoring copy) together oversubscribe one chip's HBM.
+    # (f32 + scoring copy) need not share the device's memory.
     oracle = FlatIndex(base, Metric.IP)
     gt = oracle.search(queries, k=10, exact=True)[1]
-    # the brute-force floor the index must beat (VERDICT r4 #3): the
+    # the brute-force floor the index must beat: the
     # planner's seqscan alternative at this exact shape, fetch-timed on
     # the same harness, recorded IN the artifact next to the sweep
     fst = {}
@@ -91,24 +90,17 @@ def main():
 
     # one-device mesh: the 8-partition fan-out + merge as ONE program
     sh = pidx.sharded(jax.make_mesh((1,), ("shard",)))
-    sh.release_parts_device_state()  # drop the duplicate shard HBM copies
+    sh.release_parts_device_state()  # drop the duplicate shard copies
 
     rows = []
     for ef in (16, 32, 64, 128):
         probes = sh.probes_for_ef(ef)
-        # Chunk size is the throughput lever (round-4 fetch-timed sweep,
-        # benchmarks/expand_sweep.json): the expansion dispatch carries a
-        # ~25ms cost that is nearly independent of Q, so bigger query
-        # chunks amortize it (Q=512 -> 17k QPS bound; Q=2048 -> 45k).
-        # Bound the chunk by the [chunk, 8*probes, S, dp] int8 gather
-        # intermediate (~6GB next to the 5.5GB serving state).
+        # Bigger query chunks amortize per-dispatch fixed cost. Bound the
+        # chunk by the [chunk, 8*probes, S, dp] int8 gather intermediate.
         pp_total = probes * n_parts
         per_q = pp_total * 256 * 128  # intermediate bytes per query
-        # r5: the dispatch-amortization budget rises to ~8.5GB of
-        # gather intermediate (serving state is 5.5GB of 16GB; the
-        # r4 6GB budget left QPS on the table — chunk size IS the
-        # throughput knob under the ~25ms dispatch floor). On OOM the
-        # except path below halves back.
+        # ~8.5GB of gather intermediate budget; on OOM the except path
+        # below halves back.
         chunk = 512
         while chunk * 2 <= min(8192, 8_500_000_000 // per_q):
             chunk *= 2
@@ -129,8 +121,8 @@ def main():
                                    pipeline=max(1, n_queries // chunk),
                                    stats_out=st)
         if (st.get("qps_cv") or 0) > 0.10:
-            # r2 shipped an ef=16 point at CV 0.19 — re-measure with
-            # double-length windows until the <=10% bar holds
+            # re-measure with double-length windows until the <=10%
+            # reproducibility bar holds
             st = {}
             qps, ids = measure_qps(sh, queries, 10, ef, probes=probes,
                                    pipeline=max(1, n_queries // chunk),

@@ -1,20 +1,19 @@
 #!/usr/bin/env python
 """Config E mechanism demo — LAION-100M shape (BASELINE.md:23), scaled.
 
-Config E is 100M x 512-d bf16, CENTROID-partitioned across a v5e-8 (8
-chips, ICI all_gather merge). This environment has ONE real chip, so
-this script demonstrates the full mechanism on the virtual 8-device CPU
-mesh (the same shard_map/all_gather program the real pod would run —
-SURVEY §4 multi-device-without-a-cluster) at a scaled-down corpus, and
-records the per-chip memory arithmetic for the real 100M deployment from
-live bytes/element.
+Config E is 100M x 512-d bf16, CENTROID-partitioned across devices
+(all_gather merge). This script demonstrates the full mechanism on the
+virtual 8-device CPU mesh (the same shard_map/all_gather program a
+multi-GPU host runs — SURVEY §4 multi-device-without-a-cluster) at a
+scaled-down corpus, and records the per-card memory arithmetic for the
+real 100M deployment on four H100s from live bytes/element.
 
-Round 3 (VERDICT r2 #1): the shards are BLOCK-engine
-(``BlockHnswIndex``) — the engine that actually fits config E's memory
-budget (~1.1kB/elem at 512d bf16 vs the graph engine's ~3.3kB, see
-benchmarks/config_e_shard.json) — served by ``ShardedBlockSearcher``
-(shard_map + ICI all_gather merge). The demo cross-checks the mesh
-program against the host-loop fan-out on the same shards.
+The shards are BLOCK-engine (``BlockHnswIndex``) — the engine that fits
+config E's memory budget (~1.1kB/elem at 512d bf16 vs the graph
+engine's ~3.3kB, scripts/config_e_shard.py) — served by
+``ShardedBlockSearcher`` (shard_map + all_gather merge). The demo
+cross-checks the mesh program against the host-loop fan-out on the same
+shards.
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python scripts/config_e.py
@@ -73,7 +72,7 @@ def main():
     flat = FlatIndex(base, Metric.COSINE)
     _, gt = flat.search(queries, k=10)
 
-    sharded = pidx.sharded(mesh)  # ShardedBlockSearcher: shard_map + ICI merge
+    sharded = pidx.sharded(mesh)  # ShardedBlockSearcher: shard_map + merge
     max_probes = max(s.n_blocks for s in pidx.parts)
 
     # mesh program == host-loop fan-out on the same shards (exhaustive)
@@ -102,19 +101,20 @@ def main():
             })
             print(rows[-1], flush=True)
 
-    # per-chip memory arithmetic for the REAL config E from live stats:
+    # per-card memory arithmetic for the REAL config E from live stats:
     # demo-scale per-shard bytes (small-n padding inflates it) plus the
-    # 4M-row shard measurement (benchmarks/config_e_shard.json: 1087.9)
+    # 4M-row shard measurement (scripts/config_e_shard.py: 1087.9)
     per_elem_demo = float(np.mean([
         p.stats()["memory_total_bytes"] / max(p.n, 1)
         for p in pidx.parts if p.n
     ]))
-    per_elem_at_scale = 1087.9  # measured, 4M x 512d bf16 shard (r2)
-    shard_rows_100m = 100_000_000 // n_parts
+    per_elem_at_scale = 1087.9  # measured, 4M x 512d bf16 shard
+    cards, card_gib = 4, 80  # four H100 80GB; JAX takes 3/4 of each
+    rows_per_card_100m = 100_000_000 // cards
     mesh_stats = sharded.stats()
     out = {
         "config": "E (LAION-100M shape) — block-engine shards on virtual "
-                  "8-dev mesh (shard_map + ICI all_gather merge)",
+                  "8-dev mesh (shard_map + all_gather merge)",
         "dataset": "synthetic-clustered",
         "n": n, "dim": dim, "metric": "cosine", "dtype": "bfloat16",
         "partitions": n_parts, "router": "centroid",
@@ -128,13 +128,13 @@ def main():
         "bytes_per_element_demo_scale": round(per_elem_demo, 1),
         "bytes_per_element_at_scale": per_elem_at_scale,
         "bytes_per_element_at_scale_source":
-            "benchmarks/config_e_shard.json (4M x 512d bf16 shard, r2)",
-        "per_chip_100m_projection_gb": round(
-            per_elem_at_scale * shard_rows_100m / 2**30, 2
+            "scripts/config_e_shard.py (4M x 512d bf16 shard)",
+        "per_card_100m_projection_gib": round(
+            per_elem_at_scale * rows_per_card_100m / 2**30, 2
         ),
-        "v5e_hbm_per_chip_gb": 16,
-        "fits_100m_8way": bool(
-            per_elem_at_scale * shard_rows_100m < 15.5 * 2**30
+        "card_memory_gib": card_gib,
+        "fits_100m_on_4_cards": bool(
+            per_elem_at_scale * rows_per_card_100m < 0.75 * card_gib * 2**30
         ),
     }
     os.makedirs("benchmarks", exist_ok=True)

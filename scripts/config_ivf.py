@@ -1,9 +1,9 @@
 """IVFFlat serving numbers — the reference's second index AM, measured.
 
 Upstream sizing guidance (pgvector README): lists ~ rows/1000 for up to
-1M rows, probed with ``ivfflat.probes``. This measures the TPU IVFFlat
+1M rows, probed with ``ivfflat.probes``. This measures the IVFFlat engine
 (`index/ivf.py`: padded [lists, maxlen, d] block tensor; a probe is one
-contiguous block gather + one MXU matmul) at the config-B shape with the
+contiguous block gather + one matmul) at the config-B shape with the
 standard probes sweep, so the IVF AM carries a measured recall/QPS curve
 like every other engine.
 

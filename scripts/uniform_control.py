@@ -9,7 +9,7 @@ well-defined) and publishes the recall/probes curve next to the
 clustered one, showing where blocked level-0 degrades and what probe
 count recovers >=0.95.
 
-Runs on the REAL TPU chip. Writes benchmarks/uniform_control.json.
+Runs on the accelerator JAX finds. Writes benchmarks/uniform_control.json.
 """
 
 import json

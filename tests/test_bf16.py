@@ -2,7 +2,7 @@
 item 5 / BASELINE config E prerequisite).
 
 The reference's halfvec is fp16 storage with full-precision-ish distance
-(upstream ``pgvector:src/halfvec.c`` + halfutils SIMD); the TPU analogue
+(upstream ``pgvector:src/halfvec.c`` + halfutils SIMD); the analogue
 is bf16 storage with f32 accumulation (SURVEY §2.2 halfvec row).
 """
 

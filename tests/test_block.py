@@ -203,15 +203,18 @@ def test_device_resident_build_matches_host_build():
         )
 
 
-def test_exhaustive_scan_path_matches_gather_path():
+def test_exhaustive_scan_path_matches_gather_path(monkeypatch):
     """probes >= n_blocks on large stores streams the whole table once
     (the per-query gather would read Q x corpus); results must match the
     gather expansion exactly."""
     base, queries = _data(n=4096)
     cfg = HnswConfig(dim=32, m=8, ef_construction=32, seed=1)
     idx = BlockHnswIndex(cfg, block_size=64).build(base)
+    assert not idx.exhaustive(idx.n_blocks, idx.n_blocks)
     _, ids_gather = idx.search(queries, k=10, probes=idx.n_blocks)
-    idx.EXHAUSTIVE_SCAN_MIN_BLOCKS = 1  # force the streamed path
+    # force the streamed path
+    monkeypatch.setattr(BlockHnswIndex, "EXHAUSTIVE_SCAN_MIN_BLOCKS", 1)
+    assert idx.exhaustive(idx.n_blocks, idx.n_blocks)
     _, ids_scan = idx.search(queries, k=10, probes=idx.n_blocks)
     np.testing.assert_array_equal(ids_gather, ids_scan)
 

@@ -284,6 +284,36 @@ def test_sharded_block_single_device_multi_partition(data):
     np.testing.assert_array_equal(i_after, i_one)
 
 
+def test_sharded_block_exhaustive_scan_stages_per_device(data, monkeypatch):
+    """Exhaustive probes on shards past EXHAUSTIVE_SCAN_MIN_BLOCKS stream
+    each shard once on both paths (the per-query gather would materialize
+    Q x shard bytes) and agree exactly; sharded() stages each partition
+    on its own mesh device, never all of them on one."""
+    from tpu_hnsw.index.block import BlockHnswIndex
+
+    monkeypatch.setattr(BlockHnswIndex, "EXHAUSTIVE_SCAN_MIN_BLOCKS", 4)
+    base, queries, gt = data
+    pidx = PartitionedHnswIndex(
+        HnswConfig(**CFG), n_partitions=4, router="hash", engine="block",
+        block_size=64,
+    ).build(base)
+    mesh = jax.make_mesh((4,), ("shard",))
+    sh = pidx.sharded(mesh)
+    probes = max(s.n_blocks for s in pidx.parts)
+    assert probes > BlockHnswIndex.EXHAUSTIVE_SCAN_MIN_BLOCKS
+    _, i_host = pidx.search_device(queries, k=10, probes=probes)
+    _, i_mesh = sh.search(queries, k=10, probes=probes, route_k=4)
+    for a, b in zip(np.asarray(i_host), i_mesh):
+        assert set(a.tolist()) == set(b.tolist())
+    assert recall_at_k(i_mesh, gt, 10) >= 0.999
+    devs = list(mesh.devices.reshape(-1))
+    for arr in (sh.blocks, sh.blocks_score, sh.block_gids, sh.centroids):
+        for shard in arr.addressable_shards:
+            i = devs.index(shard.device)
+            assert shard.index[0] == slice(i, i + 1, None)
+            assert shard.data.shape[0] == 1
+
+
 def test_sharded_block_refuses_uncompacted_tail(data):
     base, _, _ = data
     cfg = HnswConfig(**CFG)

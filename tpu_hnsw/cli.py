@@ -191,7 +191,7 @@ def main(argv=None):
     b.add_argument(
         "--type", default="graph", choices=["graph", "block"],
         help="graph = classical HNSW; block = HNSW routing graph over "
-        "cluster-blocked level 0 (the TPU serving engine)",
+        "cluster-blocked level 0 (the flagship serving engine)",
     )
     b.add_argument("--block-size", type=int, default=256)
     b.set_defaults(fn=cmd_build)

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native HNSW engine.
+"""Configuration for the HNSW engine.
 
 Mirrors the two-tier config system of the reference (pgvector):
 
@@ -9,7 +9,7 @@ Mirrors the two-tier config system of the reference (pgvector):
   which are per-call arguments to ``search`` in this API.
 
 Defaults are pinned to upstream's (m=16, ef_construction=64, ef_search=40)
-because the evaluation configs assume them (/root/repo/BASELINE.json:7-8).
+because the evaluation configs assume them (BASELINE.json:7-8).
 """
 
 from __future__ import annotations
@@ -80,13 +80,13 @@ class HnswConfig:
     max_elements: int = 0  # capacity; 0 = size to first build batch
     dtype: str = "float32"  # storage dtype: float32 | bfloat16 (halfvec parity)
     max_level: int = DEFAULT_MAX_LEVEL
-    # Construction wave size (TPU-native batched-insert analogue of
+    # Construction wave size (batched-insert analogue of
     # pgvector's parallel build workers, SURVEY.md §2.3).  1 reproduces
     # sequential insert semantics exactly.
     wave_size: int = 1024
     # Queries expanded per beam-search step (1 = pgvector's one-candidate-
     # at-a-time HnswSearchLayer order; >1 trades extra distance evals for
-    # fewer, larger TPU steps).
+    # fewer, larger device steps).
     expand_per_step: int = 1
     # Same, for construction-time searches. >1 shortens the serial while-
     # loop (the build-throughput bottleneck) at a small recall cost.

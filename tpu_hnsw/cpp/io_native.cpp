@@ -2,7 +2,7 @@
 // raw array blob IO, multithreaded.
 //
 // The reference is a C extension end-to-end (upstream pgvector src/*.c);
-// this file is the native runtime component of the TPU build: the
+// this file is the native runtime component of the JAX build: the
 // host-side data path (dataset parsing, index snapshot IO) where Python
 // overhead would dominate at LAION-100M scale (BASELINE config E).
 // Compute stays in XLA/Pallas; this is deliberately IO-only.

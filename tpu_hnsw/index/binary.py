@@ -6,17 +6,16 @@ The reference supports HNSW indexes over the ``bit`` type through the
 ``pgvector:src/hnsw.c``; its graph traversal calls ``hamming_distance``
 per neighbor via the popcount loops of ``bitutils.c``).
 
-TPU-native reformulation. The MXU has no popcount, but it does not need
-one:
+Reformulation for the dense engines, which need no popcount:
 
 - **Hamming** over bit vectors *is* squared L2 over their {0,1}
   encodings: ``|a - b|^2 = sum (a_i - b_i)^2 = sum (a_i XOR b_i)``.
   Encoding each bit as a 0/1 bf16 lane turns every graph/block engine's
-  existing L2 machinery (MXU matmul form, VPU exact batched scores,
+  existing L2 machinery (matmul form, exact elementwise batched scores,
   k-means blocking) into an *exact* hamming engine — distances come back
   as exact small integers, no new kernel code. The memory trade is
   explicit: 2 bytes/bit versus 1/32 packed (the packed + XOR/popcount
-  VPU path remains the right call for exact flat scans and lives in
+  path remains the right call for exact flat scans and lives in
   :class:`~tpu_hnsw.ops.bitops.BinaryFlatIndex` and the Pallas kernel in
   ``ops/pallas_hamming.py``; this module is for when graph/blocked ANN
   over millions of binary vectors beats an exact scan).
@@ -54,8 +53,7 @@ def unpack_bits(packed: np.ndarray, nbits: int) -> np.ndarray:
 
 class BinaryHnswIndex:
     """HNSW ANN over binary vectors (``bit_hamming_ops`` /
-    ``bit_jaccard_ops`` parity; see module docstring for the TPU-native
-    design).
+    ``bit_jaccard_ops`` parity; see module docstring for the design).
 
     Parameters mirror :class:`HnswConfig` where applicable; ``engine``
     selects the classical graph traversal (``"graph"``) or the blocked

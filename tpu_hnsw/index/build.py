@@ -1,6 +1,6 @@
 """Wave-batched HNSW construction.
 
-The TPU-native replacement of the reference's build paths: the per-tuple
+The batched replacement of the reference's build paths: the per-tuple
 insert loop (upstream ``pgvector:src/hnswinsert.c`` ``HnswInsertTupleOnDisk``
 and the in-memory parallel build of ``hnswbuild.c``) becomes *waves* of B
 vectors inserted together:

@@ -3,24 +3,19 @@
 The reference's oracle is a sequential scan with the same operator
 (pgvector TAP recall tests compare HNSW results against
 ``ORDER BY embedding <-> q LIMIT k`` with ``enable_indexscan=off``);
-this module is the TPU equivalent: a *streamed* matmul-distance scan +
-top-k (the TPU-KNN formulation, PAPERS.md), jit-compiled.
+this module is the device equivalent: a *streamed* matmul-distance scan
++ top-k ("K Nearest Neighbor Search at Peak FLOP/s", PAPERS.md),
+jit-compiled.
 
-TPU shape of the scan:
+Shape of the scan:
 
-- the table is padded once to a block multiple and streamed through the
-  MXU as ``lax.scan`` blocks (sequential HBM reads pipeline at several
-  hundred GB/s; ``fori_loop`` + ``dynamic_slice`` measured 5x slower);
-- per-block top-k uses the TPU's hardware PartialReduce
-  (``lax.approx_min_k``) in the default path, exact ``top_k`` +
-  ``Precision.HIGHEST`` in oracle mode;
+- the table is padded once to a block multiple and streamed through
+  matmuls as ``lax.scan`` blocks (sequential device-memory reads);
+- per-block top-k uses ``lax.approx_min_k`` in the default path (on the
+  GPU and CPU it lowers to JAX's exact fallback, ROADMAP 1.4), exact
+  ``top_k`` + ``Precision.HIGHEST`` in oracle mode;
 - the default path re-ranks the surviving candidates with exact f32
   arithmetic, so results are exact-grade at fast-scan throughput.
-
-Measured (v5e, 1M x 128d, 1024-query batches): full scan ~1.7ms f32 /
-~1.6ms bf16 — exact search beats graph traversal outright up to ~10M
-rows per chip; HNSW remains the story for memory-bound 100M-scale shards
-and low-latency single queries.
 """
 
 from __future__ import annotations
@@ -93,8 +88,8 @@ def _stream_search(q, xs, xs_sq, valid, k: int, metric: Metric, precision,
 @functools.partial(jax.jit, static_argnames=("metric", "k"))
 def _stream_search_int8(q, xs8, xs_sq, scales, valid, k: int,
                         metric: Metric):
-    """Streamed int8 scan: a QUARTER of the f32 scan's HBM bytes at
-    double MXU rate (the block engine's stage-1 trick applied to the
+    """Streamed int8 scan: a QUARTER of the f32 scan's device-memory
+    bytes (the block engine's stage-1 trick applied to the
     flat table; per-ROW symmetric scales keep the quantization error in
     the cross term only — exact norms ride along in f32). Candidates
     feed the exact f32 rerank, same as the bf16-grade default path.
@@ -168,10 +163,9 @@ class FlatIndex:
     def __init__(self, vectors, metric: Metric = Metric.L2, dtype=None,
                  scan_dtype: str = "default"):
         """``scan_dtype="int8"`` adds a quantized scoring copy for the
-        streamed scan (quarter HBM bytes, double MXU rate; candidates
-        still rerank exact f32) — measured 2.4x the default scan's QPS
-        at 10M x 96 on a v5e, the planner's fastest exact plan up to
-        the ~10M/chip crossover. L1 has no matmul form and ignores it.
+        streamed scan (a quarter of the bytes; candidates still rerank
+        exact f32). Its speed on the H100 is not measured yet (ROADMAP
+        3.7). L1 has no matmul form and ignores it.
         """
         vectors = jnp.asarray(vectors)
         if dtype is not None:
@@ -265,6 +259,9 @@ class FlatIndex:
                     cand, self.metric,
                 )
             else:
+                # DEFAULT precision: an f32 table scans in TF32 on the
+                # GPU's tensor cores; the exact f32 rerank below restores
+                # the final order
                 _, cand_ids = _stream_search(
                     q, self._xs, self._xs_sq, self._valid, cand, self.metric,
                     jax.lax.Precision.DEFAULT, True,

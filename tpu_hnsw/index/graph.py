@@ -1,9 +1,9 @@
 """Flat device-array HNSW graph storage.
 
-TPU-native replacement of the reference's page-based index layout
+Device-array replacement of the reference's page-based index layout
 (upstream ``pgvector:src/hnsw.h`` metapage / ``HnswElementTuple`` /
 ``HnswNeighborTuple`` packed into 8KB Postgres pages, (de)serialized by
-``hnswutils.c``): the whole graph lives in HBM as a handful of flat,
+``hnswutils.c``): the whole graph lives in device memory as a handful of flat,
 statically-shaped arrays, so every graph access in the hot path is a
 batched gather instead of a buffer-manager page read.
 

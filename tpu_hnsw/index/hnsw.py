@@ -166,7 +166,7 @@ class HnswIndex:
         return x
 
     # ----------------------------------------------------------------- build
-    # datasets at least this large use the MXU bulk path by default
+    # datasets at least this large use the dense bulk path by default
     BULK_THRESHOLD = 20_000
 
     def build(self, data, mode: str = "auto") -> "HnswIndex":
@@ -174,7 +174,7 @@ class HnswIndex:
 
         mode: "auto" (bulk cluster build for large initial loads, waves
         otherwise), "bulk", or "wave". Both modes produce a graph with the
-        same structure/invariants; bulk is the MXU-bound fast path
+        same structure/invariants; bulk is the matmul-bound fast path
         (see index/build_cluster.py), waves are the incremental
         pgvector-faithful path.
         """
@@ -315,8 +315,9 @@ class HnswIndex:
     # ---------------------------------------------------------------- search
     # auto route picks the dense upper-subset scan at/above this n_upper:
     # small graphs keep upstream's greedy descent (the oracle-parity path;
-    # at test scale both are fast), big serving graphs take the MXU scan
-    # (measured 275ms -> ~5ms per 4096-query chunk at 1M, profile_beam.py)
+    # at test scale both are fast), big serving graphs take the dense
+    # matmul scan (one [Q, n_upper] product instead of a serial chain of
+    # gathers per level)
     ROUTE_SCAN_MIN_UPPER = 4096
 
     def _upper_ids_dev(self):
@@ -344,9 +345,8 @@ class HnswIndex:
 
     def _entry_scalars(self):
         """Device-resident (entry, entry_level) scalars, cached until the
-        entry point changes: an eager jnp.int32() measured ~10.7ms per
-        call on the serving fabric (tiny-transfer latency), and two per
-        search_device call capped the classical-HNSW QPS."""
+        entry point changes: two eager jnp.int32() transfers per
+        search_device call would sit in every batch's critical path."""
         key = (self.entry, self.entry_level)
         if getattr(self, "_entry_cache_key", None) != key:
             self._entry_cache_key = key
@@ -395,20 +395,18 @@ class HnswIndex:
         ``expand``/``descent_ef`` override the config's
         ``expand_per_step``/``descent_ef`` per call (serving knobs, like
         ef_search — wider expand trades distance evals for fewer lockstep
-        steps, which on this fabric is usually a QPS win at equal
-        recall). ``route`` picks the upper-level routing: "descent" =
+        steps). ``route`` picks the upper-level routing: "descent" =
         upstream's greedy pointer-chase (ef=descent_ef), "scan" = dense
-        MXU scan of the level>=1 subset (exhaustive routing, measured
-        ~50x cheaper at 1M — see index/search.py::scan_seeds), "auto" =
+        matmul scan of the level>=1 subset (exhaustive routing — see
+        index/search.py::scan_seeds), "auto" =
         scan for big graphs, descent for small ones (and always for L1,
         which has no matmul form)."""
         validate_ef_search(ef_search)
         if self.graph is None or self.n == 0:
             raise ValueError("index is empty")
         if isinstance(queries, jax.Array) and queries.ndim == 2:
-            # device-resident queries: skip the host round-trip (the
-            # serving fabric's host<->device bandwidth otherwise caps
-            # QPS); finite/dim validation is the caller's job here
+            # device-resident queries: skip the host round-trip;
+            # finite/dim validation is the caller's job here
             if queries.shape[1] != self.cfg.dim:
                 raise ValueError(
                     f"expected {self.cfg.dim} dimensions, not "

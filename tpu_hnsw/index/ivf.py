@@ -3,9 +3,9 @@
 Behavioral equivalent of upstream ``pgvector:src/ivf*.c``: k-means list
 centroids (``ivfflat.lists``, default 100), vectors stored per-list,
 probe-based scan (``ivfflat.probes``, default 1) with exact distances
-inside probed lists. TPU-native storage is a padded ``[lists, maxlen, d]``
-block tensor so a probe is one contiguous block gather + one MXU distance
-matmul per query batch — no per-tuple page reads.
+inside probed lists. Storage is a padded ``[lists, maxlen, d]`` block
+tensor so a probe is one contiguous block gather + one distance matmul
+per query batch — no per-tuple page reads.
 """
 
 from __future__ import annotations
@@ -105,8 +105,8 @@ class IvfFlatIndex:
         # mid-list delete (ADVICE r2 #1).
         self._cursor: np.ndarray | None = None
         # device-resident centroid table, invalidated on mutation: an
-        # eager jnp.asarray costs ~10ms of fabric latency per call,
-        # which would dominate every probe-scan dispatch
+        # eager jnp.asarray per call would put a host->device transfer
+        # in front of every probe-scan dispatch
         self._cdev = None
 
     def _centroids_device(self):

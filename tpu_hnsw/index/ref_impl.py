@@ -5,10 +5,10 @@ A direct, readable implementation of the reference's HNSW behavior
 ``HnswFindElementNeighbors``, ``SelectNeighbors`` with the
 keep-pruned-connections variant, ``HnswUpdateConnection``;
 ``pgvector:src/hnswinsert.c`` insert flow), used ONLY for tests: the
-batched TPU engine must reproduce its graphs exactly at wave size 1 and
+batched device engine must reproduce its graphs exactly at wave size 1 and
 match its recall at larger wave sizes (SURVEY.md §7.3).
 
-This is intentionally NOT TPU code: plain heaps and pointer chasing.
+This is intentionally NOT device code: plain heaps and pointer chasing.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Batched, masked frontier-expansion beam search.
 
-The TPU-native reformulation of the reference's per-query pointer-chasing
+The batched reformulation of the reference's per-query pointer-chasing
 ``HnswSearchLayer`` (upstream ``pgvector:src/hnswutils.c``): a whole batch
 of queries steps in lockstep; each step
 
 1. picks each query's best unexpanded pool candidate(s),
-2. gathers their adjacency rows (one batched HBM gather — the analogue of
+2. gathers their adjacency rows (one batched device gather — the analogue of
    the per-hop neighbor page read),
 3. gathers the neighbor vectors and scores them with a fused batched
-   matmul (MXU),
+   matmul,
 4. merges scored neighbors into the fixed-width candidate pool via top-k.
 
 Instead of the reference's per-query visited hash table (or an N-bit
@@ -106,7 +106,7 @@ def _search_layer_body(
     """Trace-time body shared by the jitted entry points.
 
     ``allowed`` is an optional device-resident ``[cap+1]`` bool mask — the
-    TPU-native filtered scan (VERDICT r3 #5): upstream runs the filter
+    device-side filtered scan: upstream runs the filter
     predicate per tuple in the executor; here disallowed elements are
     fused into the ``fresh`` mask exactly like tombstones, so they are
     never scored, never enter the pool, and the filter costs one gather
@@ -226,7 +226,7 @@ def _search_layer_body(
             )
             fresh &= ~jnp.any(earlier, axis=2)
 
-        # fused gather + distance (MXU)
+        # fused gather + distance
         v, v_sq = G.gather_vectors(g, nbrs)
         dists = D.batched_scores(qf, v, metric, vecs_sq=v_sq, q_sq=q_sq)
         dists = jnp.where(fresh, dists, INF)
@@ -409,15 +409,13 @@ def _scan_seeds_body(
     descent_ef: int,
     metric: Metric,
 ) -> jax.Array:
-    """Dense MXU routing over the level>=1 subset — the TPU-native
+    """Dense matmul routing over the level>=1 subset — the batched
     alternative to greedy upper-level descent.
 
     The upper HNSW layers are a routing structure built for sequential
-    pointer-chasing machines; on TPU the same ~n/m element subset is
-    routed better by ONE dense matmul + top-k (measured: greedy descent
-    through 4 upper levels costs 275ms per 4096-query chunk at 1M —
-    70% of total search time — vs ~5ms for the dense scan, see
-    scripts/profile_beam.py). Exhaustive routing over the subset is
+    pointer-chasing machines; on an accelerator the same ~n/m element
+    subset is routed by ONE dense matmul + top-k instead of a serial
+    chain of small gathers per level. Exhaustive routing over the subset is
     strictly stronger than ef=1..8 greedy descent (it finds the global
     nearest level>=1 elements), so recall can only improve vs upstream's
     descent (``HnswSearchLayer`` with ef=1, pgvector:src/hnswutils.c).
@@ -562,7 +560,7 @@ def _search_scan_jit(
     allowed: jax.Array | None = None,
 ):
     """Full search with dense-scan routing instead of greedy descent:
-    one MXU matmul over the level>=1 subset seeds the level-0 beam."""
+    one matmul over the level>=1 subset seeds the level-0 beam."""
     q = queries.astype(g.vectors.dtype)
     with jax.named_scope("route_scan"):
         seeds = _scan_seeds_body(g, q, upper_ids, descent_ef, metric)

@@ -7,8 +7,8 @@ in ascending distance-to-base order, keep a candidate iff it is closer to
 the base than to every already-kept one; then fill remaining slots with the
 closest pruned candidates.
 
-The TPU formulation: the inter-candidate distances are one batched matmul
-``[B, C, C]`` (MXU), and the inherently sequential greedy scan is a
+The batched formulation: the inter-candidate distances are one batched
+matmul ``[B, C, C]``, and the inherently sequential greedy scan is a
 ``fori_loop`` over the C candidate slots doing O(B*C) vector work per
 step — C is ef_construction (64), so the scan is tiny next to the matmul.
 

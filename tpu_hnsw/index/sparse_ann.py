@@ -8,10 +8,11 @@ operator classes (SURVEY.md §2.2 opclass matrix; the generic AM in
 :class:`~tpu_hnsw.ops.sparse.SparseFlatIndex`; this module closes the
 ANN gap (VERDICT r3 missing #1).
 
-TPU-native design — why not a sparse graph kernel
--------------------------------------------------
-The MXU cannot chase (index, value) pairs, and scalar scatter/gather
-formulations of sparse distance are VPU-serial. Instead of porting a
+Design — why not a sparse graph kernel
+--------------------------------------
+A matrix unit cannot chase (index, value) pairs, and scalar
+scatter/gather formulations of sparse distance are serial. Instead of
+porting a
 CPU sparse-HNSW, the index splits the problem the way every engine in
 this package does (candidates cheap and dense, final scores exact):
 

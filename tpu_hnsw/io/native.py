@@ -18,6 +18,8 @@ import numpy as np
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _TRIED = False
+#: why the last load() fell back to numpy (None when it did not)
+LOAD_ERROR: str | None = None
 
 
 def _src_path() -> str:
@@ -25,9 +27,12 @@ def _src_path() -> str:
 
 
 def _lib_path() -> str:
+    # built inside the checkout (``.native_build/``, gitignored) unless
+    # TPU_HNSW_NATIVE_DIR names another directory
     cache = os.environ.get(
         "TPU_HNSW_NATIVE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "tpu_hnsw"),
+        os.path.normpath(os.path.join(os.path.dirname(__file__), "..", "..",
+                                      ".native_build")),
     )
     os.makedirs(cache, exist_ok=True)
     return os.path.join(cache, "libtpuhnsw_io.so")
@@ -35,7 +40,7 @@ def _lib_path() -> str:
 
 def load() -> ctypes.CDLL | None:
     """Compile (once) and load the native library; None if unavailable."""
-    global _LIB, _TRIED
+    global _LIB, _TRIED, LOAD_ERROR
     with _LOCK:
         if _LIB is not None or _TRIED:
             return _LIB
@@ -58,7 +63,11 @@ def load() -> ctypes.CDLL | None:
             lib.blob_read.restype = ctypes.c_long
             lib.balanced_assign_greedy.restype = ctypes.c_long
             _LIB = lib
-        except Exception:
+        except subprocess.CalledProcessError as e:
+            LOAD_ERROR = f"g++ failed: {e.stderr.decode(errors='replace')}"
+            _LIB = None
+        except (OSError, AttributeError, subprocess.SubprocessError) as e:
+            LOAD_ERROR = repr(e)
             _LIB = None
         return _LIB
 

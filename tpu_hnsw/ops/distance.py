@@ -1,10 +1,10 @@
 """Distance primitives (XLA path).
 
-The TPU-native replacement for the reference's per-dtype SIMD distance
+The batched replacement for the reference's per-dtype SIMD distance
 loops with runtime CPU dispatch (upstream ``pgvector:src/halfutils.c``,
 ``bitutils.c``, inner loops of ``vector.c``): here "dispatch" is XLA
 specializing one traced program per dtype/shape, and the wide inner loop is
-an MXU matmul.
+a matmul.
 
 Internally the engine works with a *score* in which smaller is always
 better:
@@ -26,12 +26,13 @@ from tpu_hnsw.config import Metric
 
 
 def _dot(a: jax.Array, b_t: jax.Array) -> jax.Array:
-    """MXU matmul with f32 accumulation AND full-precision inputs.
+    """Matmul with f32 accumulation AND full-precision inputs.
 
-    TPU matmuls round f32 inputs to bf16 by default; the L2 matmul form
-    |q|^2+|x|^2-2qx then loses the low bits exactly where nearest-neighbor
-    ordering is decided (catastrophic cancellation for near pairs).
-    Precision.HIGHEST keeps f32-grade accuracy (bf16x3 passes on the MXU).
+    At DEFAULT precision an f32 matmul runs in TF32 on the GPU's tensor
+    cores (about three decimal digits); the L2 matmul form |q|^2+|x|^2-2qx
+    then loses the low bits exactly where nearest-neighbor ordering is
+    decided (catastrophic cancellation for near pairs).
+    Precision.HIGHEST runs true f32.
     """
     return jax.lax.dot_general(
         a,
@@ -55,8 +56,9 @@ def pairwise_scores(
 ) -> jax.Array:
     """Scores of every query against every point: ``[Q, N]``.
 
-    L2 uses the ``|q|^2 + |x|^2 - 2 q.x`` MXU-friendly form (the TPU-KNN
-    formulation); IP/cosine are a plain negated matmul.
+    L2 uses the ``|q|^2 + |x|^2 - 2 q.x`` matmul form ("K Nearest
+    Neighbor Search at Peak FLOP/s", PAPERS.md); IP/cosine are a plain
+    negated matmul.
     """
     dots = _dot(q, x.T)  # [Q, N] f32
     if metric is Metric.L2:
@@ -84,8 +86,8 @@ def batched_scores(
     """Scores of each query against its own gathered block.
 
     q: ``[Q, d]``, vecs: ``[Q, K, d]`` -> ``[Q, K]``.  This is the inner
-    distance step of beam search — a batched mat-vec, which the MXU cannot
-    fill anyway, so it is computed **elementwise on the VPU in f32**: exact
+    distance step of beam search — a batched mat-vec, which cannot fill a
+    matrix unit anyway, so it is computed **elementwise in f32**: exact
     distances (no bf16 input rounding, no |a|^2+|b|^2-2ab cancellation) at
     the same bandwidth cost. ``vecs_sq``/``q_sq`` are accepted for API
     compatibility and unused.

@@ -5,22 +5,22 @@ stores (index, value) pairs with a huge nominal dimensionality (up to
 1e9) and a bounded number of nonzeros (16000), and provides L2 / inner
 product / cosine / L1 distances plus type I/O in the ``{i1:v1,i2:v2}/dim``
 text format. Round 2 documented it as a non-goal; this module closes the
-gap with a TPU-native design.
+gap with a device-first design.
 
-TPU-first layout and compute
-----------------------------
+Layout and compute
+------------------
 A batch of sparse vectors is a padded COO pair: ``indices int32 [N, K]``
 (ascending per row, -1 padding) + ``values f32 [N, K]`` — fixed shapes,
 XLA-friendly, no ragged structure. Two distance paths:
 
-* **Densified MXU path** (the fast path): the *observed vocabulary* (the
+* **Densified matmul path** (the fast path): the *observed vocabulary* (the
   union of indices actually present, at most N*K values, usually ~3e4
   for SPLADE-style learned-sparse embeddings regardless of the 1e9
   nominal dim) is remapped to ``[0, V)`` at container build. When V is
   bounded (<= ~64k), rows densify to ``[*, V]`` blocks on device and
-  every pairwise distance is a plain matmul — the MXU computes sparse IP
-  at dense speed, which on TPU beats any gather/merge formulation by an
-  order of magnitude. This is the sparse analogue of the dense engines'
+  every pairwise distance is a plain matmul — sparse IP at dense matmul
+  speed, far above any gather/merge formulation. This is the sparse
+  analogue of the dense engines'
   "distance = matmul" rule (docs/ARCHITECTURE.md §1).
 * **Exact pairwise merge path** (the general path): for unbounded
   vocabularies, a [K, K] index-equality mask per pair (VPU compare +

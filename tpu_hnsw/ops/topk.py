@@ -3,7 +3,7 @@
 The candidate-heap of the reference's ``HnswSearchLayer`` (upstream
 ``pgvector:src/hnswutils.c``, pairingheap of HnswSearchCandidates) becomes
 sorted fixed-width buffers maintained with ``lax.top_k``/``sort`` — the
-compiler-friendly TPU analogue (no pointer heaps, static shapes).
+compiler-friendly batched analogue (no pointer heaps, static shapes).
 """
 
 from __future__ import annotations
@@ -23,15 +23,14 @@ def topk_smallest(scores: jax.Array, k: int) -> tuple[jax.Array, jax.Array]:
 def topk_smallest_fast(
     scores: jax.Array, k: int, recall_target: float = 0.99
 ) -> tuple[jax.Array, jax.Array]:
-    """Smallest-k tuned for WIDE rows on TPU.
-
-    ``lax.top_k`` lowers to a full per-row sort: measured 190ms on
-    [1024, 4096] on v5e vs 3.8ms for ``lax.approx_min_k`` (the TPU
-    PartialReduce op, the selection primitive of the TPU-KNN paper —
-    PAPERS.md). The approximation can only drop order-statistics ties
-    near rank k (recall_target bounds it); values returned are exact.
-    Narrow rows keep the exact path — at <=256 lanes a sort is cheap and
-    exactness is free.
+    """Smallest-k for WIDE rows via ``lax.approx_min_k`` (the selection
+    primitive of "K Nearest Neighbor Search at Peak FLOP/s", PAPERS.md).
+    On the GPU it lowers to JAX's exact fallback (ROADMAP 1.4 asks what
+    that costs against ``lax.top_k``). The approximation, where it
+    applies, can only drop order-statistics ties near rank k
+    (recall_target bounds it); values returned are exact. Narrow rows
+    keep the exact path — at <=256 lanes a sort is cheap and exactness
+    is free.
     """
     width = scores.shape[-1]
     if width <= 256 or k >= width:

@@ -1,11 +1,12 @@
 """Top-k merge collectives for partitioned search (SURVEY §5 comm backend).
 
 The reference has no network backend (single-node shared memory); the
-TPU-native replacement is XLA collectives over the device mesh. Three
+replacement here is XLA collectives over the device mesh (NCCL on
+GPUs). Three
 merge strategies, all usable inside ``shard_map``:
 
 - :func:`gather_merge_topk` — one ``all_gather`` + local top-k. Minimum
-  latency; every device receives P*k rows. The default (config E's ICI
+  latency; every device receives P*k rows. The default (config E's
   merge).
 - :func:`ring_merge_topk` — P-1 ``ppermute`` steps forwarding each
   device's original top-k around the ring, merging incrementally. Same
@@ -13,10 +14,10 @@ merge strategies, all usable inside ``shard_map``:
   P*k and each step's message is k rows — the choice when P*k is large
   enough that the all_gather buffer (or its single bisection burst)
   matters.
-- :func:`hierarchical_merge_topk` — two-level merge for multi-slice
-  deployments: merge over the intra-slice axis (ICI) first, then over
-  the cross-slice axis (DCN) — only k survivors per device cross the
-  slower fabric, the bandwidth-optimal layout for config E at 100M+
+- :func:`hierarchical_merge_topk` — two-level merge for multi-host
+  deployments: merge over the intra-host axis (NVLink) first, then over
+  the cross-host axis (network) — only k survivors per device cross the
+  slower link, the bandwidth-optimal layout for config E at 100M+
   scale.
 
 Distances must be ascending-comparable (operator units are, for every
@@ -77,7 +78,7 @@ def ring_merge_topk(d, i, k: int, axis: str, dedup: bool = False):
 
 def hierarchical_merge_topk(d, i, k: int, intra_axis: str, inter_axis: str,
                             dedup: bool = False):
-    """Two-level merge: ICI within a slice, then DCN across slices.
+    """Two-level merge: within a host first, then across hosts.
 
     Equivalent to a flat merge over both axes (top-k is associative);
     only k rows per device cross ``inter_axis``.

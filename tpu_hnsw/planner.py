@@ -4,37 +4,27 @@ pgvector registers ``hnswcostestimate`` with the Postgres planner
 (reference: ``pgvector:src/hnsw.c``, SURVEY.md §2.2 "HNSW AM handler …
 cost estimate") so the database can choose between the HNSW index scan
 and a plain sequential scan per query. This module is that decision for
-the TPU engines, priced on the measured hardware model of
-``docs/ARCHITECTURE.md`` §5 and the round-3 measurement campaign:
+the engines here, priced on a :class:`HardwareModel` of five rates:
 
-- random row gather: ~100M rows/s effective — classical graph
-  traversal is priced by rows touched;
-- effective dense-scan rate: ~2.4e13 MAC/s f32 *end-to-end* (the flat
-  exact scan fetch-times at 90.7k QPS at 1M×128, i.e. 2·n·d MACs per
-  query including top-k + exact rerank overheads);
-- block expansion: XLA materializes the [batch, probes, S, d] gather of
-  probed blocks, so the stage is bandwidth-bound on writing + re-reading
-  that intermediate (~70 GB/s effective after the unoverlapped share of
-  the ~25ms big-gather dispatch; raw marginal gather is ~200 GB/s);
-- per-dispatch fabric latency ~2 ms — small batches are dispatch-bound.
+- random row gather — classical graph traversal is priced by rows
+  touched;
+- dense f32 scan MACs — the flat scan and the centroid routing;
+- block expansion bytes — XLA materializes the [batch, probes, S, d]
+  gather of probed blocks, so the stage is priced as writing and
+  re-reading that intermediate;
+- per-program dispatch and per-beam-step overhead.
 
 Like upstream's estimator, these are *relative* costs for picking a
-plan, not wall-clock promises: the constants default to values anchored
-to the round-4 FETCH-TIMED measurements on this fabric (the round-2/3
-timing harness was debunked, docs/ROUND4.md) and are overridable
-(``HardwareModel``) or re-measurable on the live device
-(:func:`calibrate`). At the honest operating points the model
-reproduces all three measured 1M×128 numbers within ~5% (flat 89.6k
-est / 90.7k meas; block 124.5k / 123.6k; graph 48.4k / 48.0k).
+plan, not wall-clock promises. The defaults are :func:`calibrate` run on
+the card; a caller can pass its own model or re-measure on the live
+device.
 
 The one decision upstream's planner cannot make — "will the ANN engine
-reach the requested recall on THIS data?" — is handled the way the
-round-3 uniform control demands (``benchmarks/uniform_control.json``):
-:func:`cluster_structure_score` measures the sample's cluster structure,
-and the planner refuses ANN engines on structure-free data, where both
-degrade far below any useful recall target (0.35 block / 0.16 graph at
-1M uniform) and the flat exact scan is the honest plan (README
-"Hard-mode data control").
+reach the requested recall on THIS data?" — is handled by
+:func:`cluster_structure_score`: the planner refuses ANN engines on
+structure-free data, where both degrade far below any useful recall
+target and the flat exact scan is the honest plan (README "Hard-mode
+data control", ``scripts/uniform_control.py``).
 """
 
 from __future__ import annotations
@@ -52,33 +42,21 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class HardwareModel:
-    """Per-chip cost constants.
+    """Per-device cost constants.
 
-    Two calibrations exist, deliberately different in scale:
-
-    - **Defaults (here): end-to-end effective rates**, anchored so the
-      three estimators reproduce the round-4 FETCH-TIMED headline
-      measurements at 1M x 128 (flat 90.7k / block 123.6k @ probes=8 /
-      graph 48.0k QPS, BENCH_r04.json) — serving-harness overheads
-      (dispatch pipelining, top-k, result fetch) are folded into the
-      rates. These are what ``choose_engine`` should price plans with.
-    - :func:`calibrate` measures **raw kernel rates** with fetch-timed
-      microbenches (r5 on this chip: gather 178M rows/s, dense 7.5e13
-      MAC/s, expand 200 GB/s — within 2x of the
-      ``benchmarks/expand_sweep.json`` probes). Raw rates run ~2-3x
-      above end-to-end; use them for *relative* pricing on a new
-      fabric, not as absolute QPS predictions.
+    The defaults are the mean of two :func:`calibrate` runs at its
+    default shapes, in two processes on an NVIDIA H100 80GB HBM3 with
+    its power limit set to 400 W. The rates and the step overhead agreed
+    within 3% between the runs; ``dispatch_s`` is host latency and moved
+    18%. Pass another model, or calibrate on the live device, for a
+    different card.
     """
 
-    gather_rows_per_s: float = 100e6  # random row gather, row-bound
-    f32_macs_per_s: float = 2.4e13   # end-to-end dense scan incl. top-k
-    # block-expansion stage effective rate: raw marginal gather is
-    # ~200-210 GB/s (expand_sweep.json), but the serving program's
-    # unoverlapped share of the ~25ms big-gather dispatch (ROUND4.md)
-    # lands the end-to-end stage rate at ~70 GB/s
-    expand_bytes_per_s: float = 70e9
-    dispatch_s: float = 2e-3         # per-program fabric dispatch
-    step_overhead_s: float = 5.5e-3  # per beam step: pool top-k, masks
+    gather_rows_per_s: float = 6.40072e9   # random row gather
+    f32_macs_per_s: float = 3.93114e12     # dense scan incl. its top-k
+    expand_bytes_per_s: float = 1.73925e12  # block-expansion intermediate
+    dispatch_s: float = 8.65292e-5          # per-program dispatch
+    step_overhead_s: float = 1.25024e-4     # per beam step: pool top-k, masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,22 +78,17 @@ def estimate_flat_qps(n: int, dim: int, *, batch: int = 4096,
     return batch / t
 
 
-#: measured end-to-end speedup of the int8 streamed scan over the
-#: default FlatIndex scan. NEGATIVE RESULT (r5, fetch-timed): 1M x 128
-#: 89.7k vs 90.7k and 10M x 96 15.6k vs 15.2k — parity at both shapes,
-#: because the streamed scan is bound by score-tile materialization +
-#: per-block top-k traffic, not by matmul input bytes (r4's "36k int8
-#: exhaustive scan" microbench was a different, non-servable program
-#: shape). The planner therefore prices flat_int8 identically to flat
-#: and never prefers it; the FlatIndex mode stays available for
-#: byte-bound fabrics.
+#: speedup of ``FlatIndex(scan_dtype="int8")`` over the default scan.
+#: Priced at parity until it is measured on the H100 (ROADMAP 3.7): the
+#: streamed scan is bound by score-tile materialization and per-block
+#: top-k traffic as much as by matmul input bytes, so the planner never
+#: prefers it.
 INT8_SCAN_SPEEDUP = 1.0
 
 
 def estimate_flat_int8_qps(n: int, dim: int, *, batch: int = 4096,
                            hw: HardwareModel = HardwareModel()) -> float:
-    """``FlatIndex(scan_dtype="int8")`` cost (see INT8_SCAN_SPEEDUP —
-    measured parity with the default scan on this fabric)."""
+    """``FlatIndex(scan_dtype="int8")`` cost (see INT8_SCAN_SPEEDUP)."""
     t = (batch * 2.0 * n * dim / (hw.f32_macs_per_s * INT8_SCAN_SPEEDUP)
          + hw.dispatch_s)
     return batch / t
@@ -130,10 +103,8 @@ def estimate_block_qps(n: int, dim: int, *, probes: int = 8,
     f32 matmul; (2) expansion of ``probes`` blocks per query from the
     int8 scoring copy — XLA materializes the [batch, probes, S, d]
     gather, so this stage is bandwidth-bound on writing + re-reading
-    that intermediate (the measured ~120 GB/s; the Pallas fused kernel
-    in ops/pallas_expand.py is the documented alternative); (3) exact
-    f32 rerank of the ``rerank`` stage-1 survivors (MAC-priced,
-    negligible)."""
+    that intermediate; (3) exact f32 rerank of the ``rerank`` stage-1
+    survivors (MAC-priced, negligible)."""
     n_blocks = max(1, -(-n // block_size))
     probes = max(1, min(probes, n_blocks))
     route = batch * 2.0 * n_blocks * dim / hw.f32_macs_per_s
@@ -211,10 +182,10 @@ def cluster_structure_score(sample: np.ndarray, *, k: int = 64,
     return float(max(0.0, 1.0 - d_near / d_mean))
 
 
-# Below this score the ANN engines' measured recall collapses on the
-# uniform control (benchmarks/uniform_control.json: 0.35 block / 0.16
-# graph recall@10 at 1M). The 128-d uniform control scores ~0.05-0.10;
-# the clustered benchmark data scores ~0.4+.
+# Below this score the ANN engines' recall collapses on the uniform
+# control (scripts/uniform_control.py: 0.35 block / 0.16 graph
+# recall@10 at 1M). The 128-d uniform control scores ~0.05-0.10; the
+# clustered benchmark data scores ~0.4+.
 STRUCTURE_MIN = 0.25
 
 
@@ -225,7 +196,7 @@ def choose_engine(n: int, dim: int, *, recall_target: float = 0.95,
     """Pick the serving engine for a corpus — ``hnswcostestimate`` plus
     the planner's index-vs-seqscan choice rolled into one call.
 
-    Prices flat / block / graph at their round-3 operating points and
+    Prices flat / block / graph at their benchmark operating points and
     returns the fastest plan that can meet ``recall_target``: the flat
     scan is exact always; the ANN engines are only credible on data with
     cluster structure (gated by :func:`cluster_structure_score` when a
@@ -274,7 +245,7 @@ def choose_engine(n: int, dim: int, *, recall_target: float = 0.95,
         best = dataclasses.replace(
             best, reason=best.reason +
             f"; ANN engines refused: structure score {structure:.2f} < "
-            f"{STRUCTURE_MIN} (see benchmarks/uniform_control.json)")
+            f"{STRUCTURE_MIN} (see scripts/uniform_control.py)")
     if structure_note:
         best = dataclasses.replace(best, reason=best.reason + structure_note)
     return best
@@ -284,10 +255,13 @@ def calibrate(n: int = 200_000, dim: int = 128, *, batch: int = 2048,
               seed: int = 0) -> HardwareModel:
     """Re-measure ALL five HardwareModel constants on the live device.
 
-    Times, at modest shapes (~100 MB, seconds of device time):
+    Times, at modest shapes (~100 MB, seconds of device time), each as
+    the median of several trials:
 
-    - one tiny program → ``dispatch_s`` (fabric dispatch floor);
-    - one random-row gather → ``gather_rows_per_s``;
+    - one tiny program → ``dispatch_s`` (per-program dispatch floor);
+    - two programs chaining different numbers of random-row gathers →
+      ``gather_rows_per_s`` from the slope, so neither dispatch nor the
+      fetch enters it (one gather alone ends inside the dispatch floor);
     - one dense [batch, n] scoring matmul + top-k → ``f32_macs_per_s``;
     - one block-expansion program (int8 [batch, probes, S, dim] gather +
       scoring einsum, the exact stage index/block.py runs) →
@@ -297,9 +271,6 @@ def calibrate(n: int = 200_000, dim: int = 128, *, batch: int = 2048,
       synthetic random graph → ``step_overhead_s``: the per-step time
       delta minus the per-step gather component (which the model prices
       separately via ``gather_rows_per_s``).
-
-    Until round 4 the last two kept hardcoded defaults — the two
-    constants that decide block vs graph (VERDICT r3 weak #6).
     """
     import time
 
@@ -311,9 +282,15 @@ def calibrate(n: int = 200_000, dim: int = 128, *, batch: int = 2048,
     ids = jnp.asarray(rng.integers(0, n, size=(batch, 128)).astype(np.int32))
     q = jnp.asarray(rng.normal(size=(batch, dim)).astype(np.float32))
 
-    @jax.jit
-    def gather(tbl, ids):
-        return jnp.take(tbl, ids, axis=0, mode="clip").sum()
+    def gather(rounds):
+        # ``rounds`` gathers of fresh random rows in one program
+        @jax.jit
+        def f(tbl, ids):
+            def body(i, acc):
+                rows = jnp.take(tbl, (ids + i) % n, axis=0, mode="clip")
+                return acc + rows.sum()
+            return jax.lax.fori_loop(0, rounds, body, jnp.float32(0))
+        return f
 
     @jax.jit
     def scan(tbl, q):
@@ -324,24 +301,24 @@ def calibrate(n: int = 200_000, dim: int = 128, *, batch: int = 2048,
     def tiny(x):
         return x + 1.0
 
-    def timeit(fn, *args, iters=10):
-        # Fetch-timed (round-4 timing truth, docs/ROUND4.md): on this
-        # fabric jax.block_until_ready can return BEFORE remote
-        # completion, so the timed region must end with a real
-        # device->host fetch. Every measured program returns a scalar
-        # reduction, so the fetch itself is ~free; the device executes
-        # serially, so fetching the LAST enqueued result bounds all
-        # ``iters`` dispatches truthfully (the measure_qps drain
-        # pattern, utils/evalharness.py).
+    def timeit(fn, *args, iters=10, trials=5):
+        # every measured program returns a scalar reduction, so fetching
+        # the LAST result bounds all ``iters`` dispatches at ~free cost;
+        # the median over trials drops host-side stalls
         np.asarray(fn(*args))  # warm compile + fetch
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = fn(*args)
-        np.asarray(out)
-        return (time.perf_counter() - t0) / iters
+        ts = []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = fn(*args)
+            np.asarray(out)
+            ts.append((time.perf_counter() - t0) / iters)
+        return float(np.median(ts))
 
     t_dispatch = timeit(tiny, jnp.float32(1.0), iters=30)
-    t_gather = max(timeit(gather, tbl, ids) - t_dispatch, 1e-9)
+    r_lo, r_hi = 2, 34
+    t_gather = max((timeit(gather(r_hi), tbl, ids)
+                    - timeit(gather(r_lo), tbl, ids)) / (r_hi - r_lo), 1e-9)
     t_scan = max(timeit(scan, tbl, q) - t_dispatch, 1e-9)
     gather_rows_per_s = batch * 128 / t_gather
 

@@ -51,9 +51,9 @@ def measure_qps(index, queries, k, ef_search, repeats: int = 10,
     nq = len(queries)
     chunk = max(64, nq // pipeline)
     # resident queries: ONE upload, then device-side slices per batch —
-    # per-batch host->device uploads over the serving fabric otherwise
-    # cap the measurement at the link bandwidth, not index throughput
-    # (finite/dim checks run here once, as search_device's host path would)
+    # per-batch host->device uploads otherwise put the host link inside
+    # the measurement (finite/dim checks run here once, as
+    # search_device's host path would)
     qhost = np.ascontiguousarray(np.asarray(queries, np.float32))
     if not np.isfinite(qhost).all():
         raise ValueError("NaN or infinity values are not allowed")
@@ -64,14 +64,9 @@ def measure_qps(index, queries, k, ef_search, repeats: int = 10,
         return [dev(b, k=k, ef_search=ef_search, **search_kw) for b in batches]
 
     def drain(out):
-        # Force a real device->host fetch of the final batch's ids in
-        # addition to block_until_ready: on this fabric
-        # jax.block_until_ready was observed returning BEFORE remote
-        # completion for some programs (round-4 finding: microbenchmarks
-        # reading "0.04ms" for 30ms programs). The device executes
-        # serially, so fetching the LAST enqueued result bounds the
-        # whole window truthfully; the single small fetch amortizes over
-        # the window's many batches.
+        # wait for the window's work, then fetch the final batch's ids:
+        # a window ends when its results reach the host, and the one
+        # small fetch amortizes over the window's many batches
         jax.block_until_ready(out)
         np.asarray(out[-1][1])
 

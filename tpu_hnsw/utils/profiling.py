@@ -1,7 +1,7 @@
 """Profiling hooks — the EXPLAIN ANALYZE / pg_stat analogue (SURVEY §5).
 
 The reference's observability is host machinery (EXPLAIN ANALYZE buffer
-hits, pg_stat_progress_create_index); the TPU equivalents are
+hits, pg_stat_progress_create_index); the device equivalents are
 ``jax.profiler`` device traces (TensorBoard/Perfetto) plus
 ``jax.named_scope`` annotations inside the jitted programs so trace
 timelines carry index-semantics names ("route", "expand", "descend",
@@ -26,7 +26,7 @@ import jax
 def trace(logdir: str):
     """Capture a device trace of the enclosed block (jax.profiler.trace).
 
-    Works on real TPU and CPU backends; writes a TensorBoard/Perfetto
+    Works on GPU and CPU backends; writes a TensorBoard/Perfetto
     trace directory. Block until ready inside the region or the trailing
     async work lands outside the capture.
     """
